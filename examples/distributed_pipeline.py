@@ -1,10 +1,10 @@
-"""Runnable multi-chip demo on a virtual CPU mesh (no TPU pod needed).
+"""Runnable multi-chip demo on a virtual CPU mesh (no cards needed).
 
 Shards the STARK primitives over an 8-device jax.sharding.Mesh exactly
-as a pod run would — distributed four-step NTT (one all_to_all),
+as a multi-card run would — distributed four-step NTT (one all_to_all),
 sharded Merkle root (local subtrees + small all-gather), and the
 mesh-sharded MMR peaks — and checks every result against the host
-oracle. On real hardware the same code runs unmodified with ICI
+oracle. On several cards the same code runs unmodified with real
 collectives; multi-PROCESS variants (jax.distributed) live in
 scripts/run_multihost.py.
 

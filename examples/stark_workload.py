@@ -7,7 +7,7 @@ opening -> out-of-domain evaluation at an extension-field challenge.
 
     python examples/stark_workload.py [log_trace_len]
 
-Runs on whatever backend JAX finds (TPU if available, CPU otherwise);
+Runs on whatever backend JAX finds (GPU if available, CPU otherwise);
 everything printed is verified in-process. The same flow at test scale
 is pinned in tests/test_e2e_stark_workload.py.
 """

@@ -1,6 +1,6 @@
 // Native host-side core: scalar/sequential hot paths of the framework.
 //
-// The TPU owns all batch compute (JAX/XLA/Pallas); this library covers the
+// The accelerator owns all batch compute (JAX/XLA/Pallas); this library covers the
 // host-side scalar work the reference implements in compiled Rust — single
 // Tip5 permutations (proof verification, partial Merkle trees, MMR walks),
 // small NTTs, polynomial long division, batch inversion — where Python-int

@@ -5,7 +5,11 @@ virtual CPU devices, wired together with jax.distributed (Gloo CPU
 collectives). Exercises the REAL multi-host seam — cross-process
 all_to_all / all_gather through the distributed runtime, process-local
 data materialization (shard_host_array), non-fully-addressable arrays —
-exactly what a TPU pod run needs, minus the ICI.
+exactly what a multi-host run needs.
+
+Every process runs on the CPU backend (JAX_PLATFORMS=cpu below): several
+JAX processes on one card would each reserve most of its memory, so this
+check of the multi-host seam never touches an accelerator.
 
 Checks, per process:
   * distributed NTT local output shards are bit-exact vs the host oracle;
@@ -17,7 +21,7 @@ Checks, per process:
     broadcast over the distributed runtime, per-process encapsulation,
     ciphertext gather, process-0 decapsulation of every ciphertext
     (BASELINE config-5 KEM leg).
-Process 0 writes the MULTIHOST artifact.
+Process 0 writes the JSON report when an output path is given.
 """
 
 import json
@@ -39,13 +43,12 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import jax
 
 jax.config.update("jax_platforms", "cpu")
-# persistent compile cache: the 2^18 in-suite run recompiles the four-step
-# + LDE graphs per process otherwise
-jax.config.update(
-    "jax_compilation_cache_dir",
-    os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-                 ".jax_cache"))
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+
+from twenty_first_tpu.config import enable_compilation_cache  # noqa: E402
+
+# the 2^18 in-suite run recompiles the four-step + LDE graphs per process
+# otherwise
+enable_compilation_cache()
 
 import numpy as np
 
@@ -195,7 +198,7 @@ if PID == 0:
                 "root_digest": root,
                 "note": ("Validates the jax.distributed multi-host seam "
                          "(cross-process all_to_all/all_gather, process-"
-                         "local sharding) on one machine; a TPU pod run "
-                         "uses the same code with real ICI."),
+                         "local sharding) on one machine; a multi-host "
+                         "GPU run uses the same code."),
             }, f, indent=1)
 print(f"[{PID}] OK", flush=True)

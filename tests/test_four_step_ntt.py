@@ -80,7 +80,7 @@ def test_radix8_plan_optin_matches_radix4():
 
 def test_batched_slab_fold_matches_per_row():
     """Batched matrices fold the batch into the slab-map axis (round-3 fix:
-    leaving the batch inside the map body spilled VMEM, ~9x at (8, 2^22));
+    leaving the batch inside the map body multiplies each step's working set);
     (8, 2^19) hits the slabbed + batched + four-step path end to end."""
     import jax
 

@@ -1,7 +1,7 @@
 """Tests for the native-u64 (packed) field ops and the w64 NTT experiment.
 
-These paths are opt-in on TPU (measured a wash/loss vs the u32 limb core,
-see DESIGN.md §5) but stay CI-covered so the experiment remains runnable.
+These paths are opt-in (not yet measured against the u32 limb core on the
+H100, ROADMAP S2) and stay CI-covered so the experiment remains runnable.
 """
 
 import numpy as np

@@ -1,5 +1,5 @@
 """Scrambled-interior LDE pipeline vs the natural-order pipeline and the
-host oracle (DESIGN.md §15 / round-3 verdict item #4).
+host oracle (DESIGN.md §8).
 
 The variant must be bit-exact INCLUDING the Merkle root — its final
 gatherless-DIT pass restores natural evaluation order, so the leaf

@@ -2,8 +2,8 @@
 
 Launches scripts/run_multihost.py: 2 separate processes x 4 virtual CPU
 devices each, wired with jax.distributed (Gloo). Exercises cross-process
-all_to_all / all_gather and process-local sharding — the exact seam a TPU
-pod run uses, minus the ICI. The worker asserts bit-exactness of every
+all_to_all / all_gather and process-local sharding — the exact seam a
+multi-host run uses. The worker asserts bit-exactness of every
 local NTT shard vs the host oracle and that the distributed LDE+commit
 root matches a single-process run, plus the config-5 MMR batch-append
 and cross-process KEM legs (see scripts/multihost_worker.py). Size 2^18

@@ -1,7 +1,7 @@
 """Orderless NTT-domain convolution (ntt.conv_values / conv_table_values).
 
 The scrambled four-step path removes every bit-reverse gather from the
-forward+pointwise+inverse round trip (DESIGN.md §5, DIF row); these tests
+forward+pointwise+inverse round trip (DESIGN.md §8); these tests
 pin it bit-exact against the natural-order ntt_values oracle, across the
 four-step threshold, on the host path and the forced-device path, for the
 multiply / divide / prepared-table variants the polynomial engine uses

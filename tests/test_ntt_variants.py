@@ -2,7 +2,7 @@
 
 Covers the piece-paired radix-4 layers (TWENTY_FIRST_TPU_NTT_PIECES) and
 the DIF (Gentleman-Sande) stages / DIF four-step (TWENTY_FIRST_TPU_NTT_DIF)
-— both kept in-tree as measured experiments (DESIGN.md §5)."""
+— both kept in-tree behind switches (DESIGN.md §3)."""
 
 import functools
 

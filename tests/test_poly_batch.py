@@ -61,7 +61,7 @@ def test_batch_coset_extrapolate_matches_object_api():
     # probability (64/p)
     pts = rng.integers(1, P, size=9, dtype=np.uint64)
     # eager on the CPU backend: XLA:CPU's LLVM pass takes minutes on the
-    # unrolled inversion-chain graph (the TPU compiler takes seconds)
+    # unrolled inversion-chain graph
     got = poly_batch.batch_coset_extrapolate(cws, offset, pts,
                                              point_chunk=4, use_jit=False)
     for r in range(rows):

@@ -7,7 +7,7 @@ opaque proptest RNG seed (`cc 72ab41c4…`) for a polynomial property — the
 concrete inputs cannot be reconstructed without proptest's generator, so
 this suite pins the corresponding adversarial case CLASSES as fixed,
 named, deterministic cases instead, plus the dispatch-boundary cases this
-library's own fuzzer has flagged historically (DESIGN.md §5/§16 retunes:
+library's own fuzzer has flagged historically (dispatch retunes:
 Lagrange crossover 2^12, row-product batch dispatch, slab branches).
 
 Every case here is replayed unconditionally on every run — the same

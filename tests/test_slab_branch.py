@@ -4,7 +4,7 @@ On hardware the slab-mapped four-step branches only engage at
 >= _SLAB_MIN_ELEMS (2^22) elements with a lane axis divisible by _SLAB
 (128) — sizes the CPU-backend suite never reaches, so until this module
 the production 2^22+ code paths (single-matrix slab map, the bsz>1
-batch-fold, and the in-VMEM transposed slabs) had no in-suite coverage.
+batch-fold, and the transposed slabs) had no in-suite coverage.
 Here the module constants are monkeypatched down so every branch runs at
 toy sizes against the host oracle. All calls are EAGER (no jit wrappers):
 the slab dispatch is Python-level, and the jitted entry points cache

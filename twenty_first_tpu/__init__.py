@@ -1,18 +1,17 @@
-"""twenty_first_tpu — a TPU-native STARK-primitive framework.
+"""twenty_first_tpu — STARK primitives for JAX accelerators.
 
 A from-scratch JAX/XLA/Pallas implementation of the capabilities of the
 `twenty-first` Rust crate: Goldilocks-field and cubic-extension arithmetic,
 batched NTT/iNTT, polynomial algebra, the Tip5 permutation/sponge, Merkle
 trees and Merkle Mountain Ranges, lattice crypto in F_p[X]/(X^64+1) with a
-KEM, and BFieldCodec serialization — designed batch-first for TPU meshes.
+KEM, and BFieldCodec serialization — designed batch-first for device meshes.
 """
 
 __version__ = "0.1.0"
 
-# The hot transform kernels run on native-u64 planes (math/gf64.py): XLA's
-# own 64-bit integer emulation on TPU beats hand-rolled 2xu32 limb arithmetic
-# ~2x on multiply chains (scripts/x64_mul_probe.py). That requires the x64
-# flag, which must be set before the first trace.
+# Native-u64 planes (math/gf64.py, the Tip5 GPU kernel, the opt-in u64 NTT
+# and multiply routes) need the x64 flag, which must be set before the
+# first trace.
 import jax as _jax
 
 _jax.config.update("jax_enable_x64", True)

@@ -3,8 +3,8 @@
 `BFieldElement` is the user-facing scalar type, a canonical residue mod
 p = 2^64 - 2^32 + 1 backed by a python int. It mirrors the reference API
 (twenty-first/src/math/b_field_element.rs) but deliberately does **not** use
-Montgomery form — canonical residues are the representation of the TPU
-framework (see math/gf.py). Batch work belongs on the device via the limb-
+Montgomery form — canonical residues are the representation of this
+library (see math/gf.py). Batch work belongs on the device via the limb-
 plane ops; this class is for scalar logic, index math, codecs and tests.
 """
 

@@ -1,11 +1,11 @@
 """Goldilocks field (p = 2^64 - 2^32 + 1) arithmetic on 32-bit limb planes.
 
-This is the TPU-native foundation of the framework: every field element is a
-*canonical* residue in [0, p), held as two ``uint32`` limb planes ``(lo, hi)``.
-TPUs have native 32-bit integer vector units (VPU lanes are 32 bits wide), so —
-unlike the reference implementation, which uses Montgomery form because x86 has
-a 64x64->128 multiplier (reference: twenty-first/src/math/b_field_element.rs:84-86,
-:356-370) — we use the direct Goldilocks reduction identity
+This is the foundation of the library: every field element is a *canonical*
+residue in [0, p), held as two ``uint32`` limb planes ``(lo, hi)``, so that
+every op is a 32-bit vector op. Unlike the reference implementation, which
+uses Montgomery form because x86 has a 64x64->128 multiplier (reference:
+twenty-first/src/math/b_field_element.rs:84-86, :356-370), we use the direct
+Goldilocks reduction identity
 
     x2 * 2^64 + x1 * 2^32 + x0  ==  (x1 + x2) * 2^32 + x0 - x2   (mod p)
 
@@ -14,8 +14,8 @@ which the reference's own AVX-512 backend also relies on
 canonical values, so all golden test vectors port unchanged.
 
 All functions are pure, shape-polymorphic, and jit/vmap/shard_map-safe; they
-work on any equal-shaped pair of uint32 arrays, and are equally usable inside
-Pallas TPU kernels (they only use elementwise jnp ops).
+work on any equal-shaped pair of uint32 arrays (they only use elementwise
+jnp ops).
 """
 
 from __future__ import annotations
@@ -231,26 +231,19 @@ def reduce128(x0, x1, x2, x3):
 def mul_u32(a, b):
     """Pure 2xu32 modular multiply (any u64 residues in, canonical out).
 
-    This is the Pallas-safe implementation (Mosaic has no 64-bit integers);
-    the default `mul` dispatches to the packed-u64 variant outside Pallas."""
+    The default `mul` dispatches here unless TWENTY_FIRST_TPU_W64_MUL=1."""
     return reduce128(*mul64_wide(a, b))
 
 
 # ---------------------------------------------------------------------------
 # Multiply backend dispatch: packed-u64 vs pure-u32 limbs
 #
-# On an ISOLATED multiply chain XLA:TPU's own 64-bit integer emulation
-# (jax_enable_x64 + packed u64 planes) measures ~2x faster than the explicit
-# 16-bit digit products of mul64_wide (scripts/x64_mul_probe.py: 32.4G vs
-# 16.2G mul/s at 2^22). Inside the real kernels it is a WASH or a loss
-# (interleaved medians, v5e: 2^24 four-step NTT 11.18 vs 11.23 ms; Tip5
-# batch permutation 3.23 vs 2.80 ms) — the pack/unpack boundary ops and the
-# 32<->64-bit register relayouts erase the win once the multiplies sit
-# inside an already-fused u32 op soup, and u64 add/sub/shift ops measured
-# strictly slower than the limb forms (full-u64 NTT: 17.2 ms). The
-# dispatch is kept as an opt-in experiment (TWENTY_FIRST_TPU_W64_MUL=1);
-# Pallas kernels must force the u32 path regardless (Mosaic has no 64-bit
-# ints) by wrapping their body in `with gf.u32_ops():`.
+# The default multiply builds 64x64 products from 16-bit digit products in
+# u32. TWENTY_FIRST_TPU_W64_MUL=1 routes multiplies through packed u64
+# planes (math/gf64.py) instead, whose 32x32->64 partial products are the
+# hardware's widening multiply on the GPU. Which is faster on the H100 is
+# not measured yet (ROADMAP S2); `with gf.u32_ops():` forces the u32 path
+# inside one trace.
 # ---------------------------------------------------------------------------
 
 _MUL_W64 = os.environ.get("TWENTY_FIRST_TPU_W64_MUL", "0") == "1"
@@ -258,8 +251,7 @@ _MUL_W64 = os.environ.get("TWENTY_FIRST_TPU_W64_MUL", "0") == "1"
 
 @contextlib.contextmanager
 def u32_ops():
-    """Force pure-u32 limb implementations within this trace context
-    (required inside Pallas kernel bodies)."""
+    """Force pure-u32 limb implementations within this trace context."""
     global _MUL_W64
     prev = _MUL_W64
     _MUL_W64 = False
@@ -322,7 +314,7 @@ def reduce128_lazy(x0, x1, x2, x3):
 
 
 def mul_lazy_u32(a, b):
-    """Pure 2xu32 lazy multiply (Pallas-safe; see mul_u32)."""
+    """Pure 2xu32 lazy multiply (see mul_u32)."""
     return reduce128_lazy(*mul64_wide(a, b))
 
 
@@ -449,8 +441,8 @@ def inverse_or_zero(a):
     standard Goldilocks chain and representation-independent.
 
     On the CPU backend the ~82 unrolled multiplies form a single ~8k-op
-    fusion whose LLVM compile time explodes (minutes even at width 16 —
-    XLA:TPU compiles the same graph in seconds), so CPU traces use a
+    fusion whose LLVM compile time explodes (minutes even at width 16), so
+    CPU traces use a
     fori_loop square-and-multiply over the fixed exponent bits instead:
     same values, shallow graph, ~2x the (irrelevant on CPU) runtime ops.
     """
@@ -513,7 +505,7 @@ def batch_inversion(x, axis: int = -1):
     n = lo.shape[-1]
     # Inclusive prefix products. Sequential scan over the axis; for the sizes
     # used in interpolation (<= a few thousand) an unrolled-by-log scan
-    # (Hillis-Steele) keeps the graph shallow and TPU-friendly.
+    # (Hillis-Steele) keeps the graph shallow.
     plo, phi = _prefix_prod((lo, hi))
     total = (plo[..., -1], phi[..., -1])
     inv_total = inverse_or_zero(total)

@@ -1,17 +1,12 @@
-"""Goldilocks field arithmetic on native-u64 planes (XLA 64-bit emulation).
+"""Goldilocks field arithmetic on native-u64 planes.
 
 The limb-plane module (`gf.py`) holds elements as 2xuint32 planes and
 decomposes every 64-bit operation by hand (16-bit digit products, explicit
-carry captures). Measured on TPU v5e, XLA's OWN 64-bit integer emulation
-(`jax_enable_x64`) beats that hand-rolled decomposition ~2x on the multiply
-chain (scripts/x64_mul_probe.py: 32.4G vs 16.2G mul/s at 2^22) — XLA lowers
-u64 multiplies to the hardware's 32x32 multiply-high path instead of four
-16-bit digit products, and u64 add/compare to carry chains cheaper than
-explicit `(s < a)` fixups on separate planes.
-
-This module therefore mirrors gf.py's *lazy* op set on single uint64 arrays.
-It is used inside the hot transform kernels (NTT butterfly stages); the
-package enables `jax_enable_x64` at import. Semantics are identical to the
+carry captures). This module mirrors gf.py's *lazy* op set on single uint64
+arrays, whose multiplies split into four 32x32->64 partial products — the
+GPU's widening multiply. It backs the Tip5 GPU kernel (tip5/kernel.py) and
+the opt-in u64 NTT and multiply routes; the package enables
+`jax_enable_x64` at import. Semantics are identical to the
 gf.py ops:
 
   * "lazy" values are arbitrary u64 residues (any x < 2^64 with
@@ -100,7 +95,7 @@ def mul_lazy(a, b):
 
     Full 128-bit product from four 32x32 partials held in u64 registers —
     XLA lowers each u64 multiply of 32-bit-ranged operands onto the native
-    multiply path, beating explicit 16-bit digit decomposition ~2x.
+    multiply path.
     """
     alo = a & _M32
     ahi = a >> 32

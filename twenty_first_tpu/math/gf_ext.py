@@ -1,9 +1,9 @@
 """Device extension-field arithmetic on limb planes, component axis -2.
 
-The TPU-native layout for extension-field data is ``(..., 3, n)`` limb-plane
+The device layout for extension-field data is ``(..., 3, n)`` limb-plane
 pairs: the 3 coefficient planes of F_p[x]/(x^3 - x + 1) ride as a small
 batch axis while ``n`` stays the minor (lane) dimension, so every op is a
-full-width VPU vector op and the base-field NTT (math/ntt.py) transforms
+full-width vector op and the base-field NTT (math/ntt.py) transforms
 extension data unchanged (twiddles are base-field scalars, the reference's
 `MulAssign<BFieldElement>` bound, x_field_element.rs:600-612).
 

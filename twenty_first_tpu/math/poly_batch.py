@@ -1,7 +1,7 @@
 """Batch-first polynomial ops on device (limb planes).
 
 The scalar `Polynomial` class (math/polynomial.py) mirrors the reference's
-object API; this module is the TPU-native throughput path operating on
+object API; this module is the device throughput path operating on
 whole batches of polynomials as uint64/limb arrays — the layer a STARK
 prover actually drives (SURVEY §7: "batch-first APIs"):
 
@@ -117,7 +117,7 @@ def batch_coset_extrapolate(codewords: np.ndarray, offset: int,
     log-doubling power table + weighted fold per point chunk. Per point
     this is n multiplies with NO inversions — the earlier closed-form
     barycentric kernel spent ~36 full-matrix passes in two Hillis-Steele
-    prefix-product scans per chunk (see DESIGN.md §5b); this form is
+    prefix-product scans per chunk (see DESIGN.md §5); this form is
     ~10x faster at the bench shape (2^18 -> 2^10) and, unlike
     barycentric, is also exact AT in-domain points (no zero
     denominators). codewords: (rows, n); points: (m,) -> (rows, m).

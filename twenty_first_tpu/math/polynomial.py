@@ -5,13 +5,13 @@ Mirrors the capability surface of twenty-first/src/math/polynomial.rs
 modular coset interpolation/extrapolation/barycentric evaluation) with the
 reference's algorithm families and benchmark-derived cutoffs.
 
-TPU-native design: coefficients are stored as **numpy uint64 arrays** —
+Design: coefficients are stored as **numpy uint64 arrays** —
 shape (n,) over the base field, (n, 3) over the extension — never as lists
 of scalar objects. Every superlinear loop is a whole-array operation
 (math/gf_numpy.py, math/xgf_numpy.py on host; math/ntt.py + math/gf_ext.py
 on device for large transforms; native C++ long division when available).
 The reference gets this from compiled Rust + rayon; here the same role is
-played by vectorized numpy + the TPU, with the object API (`coefficients`
+played by vectorized numpy + the device, with the object API (`coefficients`
 as BFieldElement/XFieldElement lists) materialized only at the boundary.
 """
 
@@ -49,7 +49,7 @@ FAST_MODULAR_COSET_INTERPOLATE_CUTOFF_THRESHOLD_PREFER_LAGRANGE = 1 << 8
 # crossover against the device branch is far beyond any practical codeword
 # length (measured at 2^18: recursion 327 s vs iNTT < 1 s). The recursion
 # is implemented and tested (test_polynomial.py) but only dispatched above
-# this TPU-calibrated threshold.
+# this threshold (set on an earlier accelerator; not measured on the H100).
 FAST_MODULAR_COSET_INTERPOLATE_CUTOFF_THRESHOLD_PREFER_INTT = 1 << 26
 FAST_COSET_EXTRAPOLATE_THRESHOLD = 100
 CLEAN_DIVIDE_CUTOFF = 1 << 9
@@ -385,7 +385,7 @@ def _ntt_mul_arrays(a: np.ndarray, b: np.ndarray, x: bool) -> np.ndarray:
     """Full product of two coefficient arrays via NTT-domain convolution
     (ntt.conv_values: host-native kernel for small sizes; one jitted
     gather-free device graph for large — the intermediate order cancels,
-    so no bit-reverse permutations are paid; DESIGN.md §5 DIF row).
+    so no bit-reverse permutations are paid; DESIGN.md §8).
     Matches polynomial.rs:900-932."""
     la, lb = a.shape[0], b.shape[0]
     out_len = la + lb - 1

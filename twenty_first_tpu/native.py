@@ -1,6 +1,7 @@
 """ctypes bridge to the native host core (native/twenty_first_native.cpp).
 
-The shared library is built on demand with `make -C native` (g++); if the
+The shared library is built on demand with the C++ compiler ($CXX, default
+g++; the same flags as native/Makefile); if the
 toolchain or library is unavailable everything falls back to the pure-Python
 implementations transparently. `available()` reports the active state.
 """
@@ -32,16 +33,20 @@ def _load():
              or (os.path.exists(src)
                  and os.path.getmtime(src) > os.path.getmtime(_LIB_PATH)))
     if stale:
-        try:
-            subprocess.run(
-                ["make", "-C", _NATIVE_DIR, "-sB"],
-                check=True,
-                capture_output=True,
-                timeout=120,
-            )
-        except Exception:
-            if not os.path.exists(_LIB_PATH):
-                return None
+        # the flags of native/Makefile, without needing make; $CXX first,
+        # then the usual compiler names
+        flags = ["-O3", "-march=native", "-fPIC", "-shared", "-std=c++17",
+                 "-fopenmp", "-o", _LIB_PATH, src]
+        for cxx in dict.fromkeys(filter(None, (os.environ.get("CXX"), "g++",
+                                               "c++"))):
+            try:
+                subprocess.run([cxx, *flags], check=True, capture_output=True,
+                               timeout=120)
+                break
+            except Exception:
+                continue
+        if not os.path.exists(_LIB_PATH):
+            return None
     try:
         lib = ctypes.CDLL(_LIB_PATH)
     except OSError:

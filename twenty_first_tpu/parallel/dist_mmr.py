@@ -1,6 +1,6 @@
 """Distributed MMR: mesh-sharded peaks-from-leafs and batch-append.
 
-TPU-native reformulation of the reference's diagonal sweep
+Batched reformulation of the reference's diagonal sweep
 (mmr_accumulator.rs:96-115), which is inherently sequential: the leaf
 count's binary decomposition splits the leafs into contiguous perfect
 trees, so each peak is an independent Merkle reduction. Peaks large

@@ -12,7 +12,7 @@ we use the classic four-step factorization n = n1 * n2:
   2. each chip runs *local* length-n2 NTTs over its column block;
   3. multiply by the diagonal twiddles w^(j1*k2) (chip-local block);
   4. one all-to-all transpose re-shards rows k2 over chips (the only
-     communication, riding ICI);
+     communication; NVLink between the cards of one host);
   5. each chip runs local length-n1 NTTs;
 
 Output is the natural-order X viewed as an (n2, n1) matrix holding X^T
@@ -73,14 +73,14 @@ def _local_ntt(x, log_m: int, inverse: bool):
 
 
 def _a2a_chunks_default() -> int:
-    """Transpose/compute overlap factor (SCALING_MODEL.json's named lever).
+    """Transpose/compute overlap factor.
 
     The all-to-all is the distributed NTT's ONLY collective; splitting it
     into per-destination-row chunks interleaved with the second local pass
     lets XLA's latency-hiding scheduler overlap communication chunk i+1
     with compute chunk i, hiding up to (C-1)/C of the transpose. Default 4
-    (exposed transpose = A/4: worst-case ring E(8) at 2^26 moves 76.6% ->
-    ~93%, DESIGN §14b). Set TWENTY_FIRST_TPU_A2A_CHUNKS=1 to disable."""
+    (chosen from a ring-network model; C=1 against C=4 on four H100s is in
+    PERF.md). Set TWENTY_FIRST_TPU_A2A_CHUNKS=1 to disable."""
     import os
 
     return max(1, int(os.environ.get("TWENTY_FIRST_TPU_A2A_CHUNKS", "4")))

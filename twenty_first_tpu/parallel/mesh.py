@@ -1,9 +1,11 @@
 """Device mesh setup for multi-chip/multi-host execution.
 
 The reference has no distributed layer (its parallelism is rayon threads,
-SURVEY.md §2a); this module is the TPU-native equivalent layer: a named 1-D
-mesh over all available devices, with shard_map-based kernels in
-dist_ntt.py / dist_merkle.py communicating over ICI via XLA collectives.
+SURVEY.md §2a); this module is the equivalent layer: a named 1-D mesh over
+all available devices, with shard_map-based kernels in dist_ntt.py /
+dist_merkle.py communicating via XLA collectives. The mesh follows the
+algorithm (one all-to-all, one all-gather), not a physical topology: the
+cards of one host are joined all to all.
 """
 
 from __future__ import annotations

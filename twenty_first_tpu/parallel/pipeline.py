@@ -4,16 +4,16 @@ Single-chip and mesh-sharded variants of the standard STARK workload this
 library exists for (BASELINE.json config 4): low-degree-extend a trace
 (coset/plain NTT) and commit to it with a Tip5 Merkle tree.
 
-The distributed variant chains, inside ONE jitted step:
+The distributed variant chains, in two device programs:
   1. the four-step NTT (dist_ntt): local NTTs + diagonal twiddles + one
      all-to-all transpose over the mesh axis;
   2. row hashing: each chip Tip5-hashes its rows of the evaluation matrix
-     into leaf digests (pure local compute);
-  3. the sharded Merkle reduction (dist_merkle): local subtree roots, one
-     small all-gather, redundant top tree.
+     into leaf digests (pure local compute), then the sharded Merkle
+     reduction (dist_merkle): local subtree roots, one small all-gather,
+     redundant top tree.
 
-This is the library's analogue of a "sharded training step": compute is
-chip-local, the only collectives are the NTT transpose and the root gather.
+Compute is chip-local; the only collectives are the NTT transpose and the
+root gather.
 """
 
 from __future__ import annotations
@@ -37,8 +37,8 @@ from . import dist_merkle
 def lde_commit_diags(n: int, expansion: int = 4):
     """Four-step diagonal device tables for trace_lde_commit at trace
     length n: (inv_diag_pair_or_None, fwd_diag_pair_or_None). Fetch this
-    OUTSIDE jit and thread the arrays through as arguments — captured
-    diagonals are compile payload (32 MB at 2^22)."""
+    OUTSIDE jit and thread the arrays through as arguments, so the graph
+    does not carry the tables (32 MB at 2^22) as constants."""
     inv_d = fwd_d = None
     if n.bit_length() - 1 >= ntt_mod.FOUR_STEP_THRESHOLD_LOG2:
         inv_d = ntt_mod._four_step_diag_device(n.bit_length() - 1, True)
@@ -65,7 +65,7 @@ def trace_lde_commit(trace, expansion: int = 4,
     ntt_diags: pass lde_commit_diags(n, expansion) (threaded through the
     caller's jit as arguments) so the two transforms run the slab-mapped
     four-step above the threshold; without it they fall back to the plain
-    last-axis core (measured ~9x slower at (8, 2^22)).
+    last-axis core.
     """
     from ..math.b_field_element import GENERATOR
 
@@ -101,14 +101,19 @@ def _hash_rows_commit(evals, w: int, big_n: int):
 
     Each evaluation row is hashed fixed-length-domain in ONE Tip5
     permutation (W <= RATE), then reduced layer-wise to the Merkle root.
-    On the TPU backend the whole tail (leaf hashing + bulk Merkle layers)
-    runs through the lane-packed dense kernel (ops.tip5_packed) — one
-    pack transpose in, one digest unpack out (DESIGN.md §19)."""
-    from ..ops import tip5_packed
+    The evaluation planes are already word-major, so on the GPU the leaf
+    hashing and the whole Merkle reduction run the Tip5 kernel with no
+    transpose; otherwise the rows become row-major (big_n, 16) states for
+    the XLA form."""
+    from ..tip5 import kernel
     from ..tip5.constants import STATE_SIZE
 
     import jax.numpy as jnp
 
+    log_rows = big_n.bit_length() - 1
+    if kernel.use_kernel(big_n):
+        leafs = kernel.hash_rows_wm(evals)
+        return dist_merkle.reduce_layers_wm(leafs, log_rows)
     rows_lo = jnp.transpose(evals[0])  # (big_n, W)
     rows_hi = jnp.transpose(evals[1])
     state_lo = jnp.concatenate(
@@ -117,9 +122,6 @@ def _hash_rows_commit(evals, w: int, big_n: int):
          jnp.ones((big_n, STATE_SIZE - 10), jnp.uint32)], axis=1)
     state_hi = jnp.concatenate(
         [rows_hi, jnp.zeros((big_n, STATE_SIZE - w), jnp.uint32)], axis=1)
-    log_rows = big_n.bit_length() - 1
-    if tip5_packed.packed_eligible(big_n) and tip5_packed.use_packed_commit():
-        return tip5_packed.commit_states_packed(state_lo, state_hi, log_rows)
     perm = tip5_dev.permutation((state_lo, state_hi))
     leafs = (perm[0][:, :5], perm[1][:, :5])
     return dist_merkle._reduce_layers(leafs, log_rows)
@@ -162,7 +164,7 @@ def trace_lde_commit_scrambled(trace, expansion: int = 4, tables=None):
 
     Same result bit-for-bit (the final norev pass restores natural
     evaluation order, so leaf order and root match trace_lde_commit);
-    different data movement (DESIGN.md §15):
+    different data movement (DESIGN.md §8):
       1. DIF iNTT: natural -> scrambled coefficients, ZERO gathers, with
          the offset-power scaling AND 1/n fused into its second pass
          (saves the standalone gf.mul materialization);
@@ -214,14 +216,10 @@ def lde_commit(x):
 
 
 @functools.lru_cache(maxsize=None)
-def make_dist_lde_commit(mesh, log_n: int):
-    """Jitted distributed LDE+commit: (n2, n1) column-sharded coefficient
-    matrix -> replicated (1, 5) Merkle root limb planes."""
-    n1, n2 = dist_ntt._split_sizes(log_n)
-    d = mesh.shape[AXIS]
-    log_d = d.bit_length() - 1
-    ntt_run = dist_ntt._make_distributed_ntt(mesh, log_n, False, False)
-    log_n2 = n2.bit_length() - 1
+def _make_dist_commit_tail(mesh, log_n: int):
+    """Jitted (n2, n1) row-sharded evaluations -> (1, 5) root planes: leaf
+    hashing per shard, then the sharded Merkle root."""
+    _, n2 = dist_ntt._split_sizes(log_n)
 
     def hash_rows(lo, hi):
         # (n2/d, n1) local evaluation rows -> (n2/d, 5) leaf digests
@@ -232,30 +230,42 @@ def make_dist_lde_commit(mesh, log_n: int):
         in_specs=(P(AXIS, None), P(AXIS, None)),
         out_specs=(P(AXIS, None), P(AXIS, None)),
     )
-    merkle_fn = dist_merkle._make_distributed_root(mesh, log_n2)
+    merkle_fn = dist_merkle._make_distributed_root(mesh, n2.bit_length() - 1)
 
     @jax.jit
-    def run(lo, hi, tw_lo, tw_hi):
-        zlo, zhi = ntt_run(lo, hi, tw_lo, tw_hi)
-        hlo, hhi = hash_fn(zlo, zhi)
-        rlo, rhi = merkle_fn(hlo, hhi)
+    def run(zlo, zhi):
+        rlo, rhi = merkle_fn(*hash_fn(zlo, zhi))
         return rlo[:1], rhi[:1]
 
-    def wrapped(lo, hi):
+    return run
+
+
+@functools.lru_cache(maxsize=None)
+def make_dist_lde_commit(mesh, log_n: int, a2a_chunks: int | None = None):
+    """Distributed LDE+commit: (n2, n1) column-sharded coefficient matrix
+    -> replicated (1, 5) Merkle root limb planes. Two device programs, the
+    distributed NTT and the commit tail, so NTTs that differ only in
+    `a2a_chunks` (the transpose's overlap factor, dist_ntt.distributed_ntt)
+    share one compiled tail."""
+    ntt_run = dist_ntt._make_distributed_ntt(mesh, log_n, False, False,
+                                             a2a_chunks)
+    tail = _make_dist_commit_tail(mesh, log_n)
+
+    def run(lo, hi):
         tw_lo, tw_hi = dist_ntt._twiddle_device(mesh, log_n, False)
-        return run(lo, hi, tw_lo, tw_hi)
+        return tail(*ntt_run(lo, hi, tw_lo, tw_hi))
 
-    del log_d, n1
-    return wrapped
+    return run
 
 
-def dist_lde_commit_values(values: np.ndarray, mesh) -> Digest:
+def dist_lde_commit_values(values: np.ndarray, mesh,
+                           a2a_chunks: int | None = None) -> Digest:
     """Host-convenience: coefficient vector (n,) -> committed Merkle root."""
     values = np.asarray(values, dtype=np.uint64)
     n = values.shape[-1]
     log_n = n.bit_length() - 1
     n1, n2 = dist_ntt._split_sizes(log_n)
-    lo, hi = make_dist_lde_commit(mesh, log_n)(
+    lo, hi = make_dist_lde_commit(mesh, log_n, a2a_chunks)(
         *gf.to_limbs(values.reshape(n2, n1))
     )
     return Digest.from_array(gf.from_limbs((lo, hi))[0])

@@ -1,8 +1,8 @@
 """Scaling-efficiency harness: distributed NTT / Merkle / LDE across mesh sizes.
 
 Measures one fixed problem size on meshes of 1, 2, ..., N devices and
-reports throughput plus scaling efficiency (speedup / ideal). On a real pod
-slice this exercises ICI collectives; under
+reports throughput plus scaling efficiency (speedup / ideal). On several
+cards this exercises real collectives; under
 `--xla_force_host_platform_device_count=N` it validates the sharding and
 communication structure functionally.
 
@@ -113,8 +113,9 @@ def scaling_report(log_n: int = 20, mesh_sizes=None) -> dict:
             "runs at every mesh size, the collective structure (one "
             "all-to-all + one root all-gather) is exercised, and the "
             "result is bit-exact vs the host oracle (ntt_bit_exact per "
-            "row). Real scaling needs a pod slice; the same code runs "
-            "there via --coordinator/--num-processes/--process-id.")
+            "row). Real scaling needs several cards; the same code runs "
+            "there, across hosts via --coordinator/--num-processes/"
+            "--process-id.")
     base_ntt = None
     base_lde = None
     for d in mesh_sizes:
@@ -140,7 +141,7 @@ def main():
     parser = argparse.ArgumentParser()
     parser.add_argument("--log-n", type=int, default=18)
     parser.add_argument("--json", action="store_true")
-    # multi-host: a pod run is a flag set, not new code — each host runs
+    # multi-host: a multi-host run is a flag set, not new code — each host runs
     # this same script with its process id; jax.distributed wires the rest.
     parser.add_argument("--coordinator", default=None,
                         help="host:port of process 0 (multi-host runs)")

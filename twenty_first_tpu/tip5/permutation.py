@@ -1,22 +1,22 @@
 """Batched Tip5 permutation on device (jnp limb planes).
 
 The reference applies the permutation to one 16-word state at a time with
-AVX-512 lanes inside one state (tip5/avx512.rs). On TPU the natural layout is
-the transpose: a *batch* of states, shape (..., 16) per limb plane, with the
-VPU vectorizing across the batch. One permutation call fuses all 5 rounds.
+AVX-512 lanes inside one state (tip5/avx512.rs). Here the natural layout is
+the transpose: a *batch* of states, shape (..., 16) per limb plane,
+vectorized across the batch. This XLA form is the reference for the GPU
+kernel (tip5/kernel.py) and the path on every other backend.
 
 Layers (reference tip5/mod.rs:175-253):
   * S-box: words 0..4 pass through the byte-wise lookup applied to the
     Montgomery representative's bytes (the LUT *is specified* on Montgomery
     bytes, mod.rs:197-207); the lookup itself is evaluated arithmetically as
-    the offset Fermat cube map (x+1)^3 - 1 mod 257 — cheaper on TPU than an
-    8-way gather. Words 4..16 are raised to the 7th power.
+    the offset Fermat cube map (x+1)^3 - 1 mod 257, with no gather. Words
+    4..16 are raised to the 7th power.
   * MDS: 16x16 circulant matrix with 16-bit entries, evaluated as an exact
     integer matvec on 16-bit digit planes with split lo/hi accumulation, then
     one 128-bit Goldilocks reduction. (The reference evaluates the same
-    integer convolution via a generated 16-point FFT, mod.rs:256-506; on TPU
-    the broadcast-multiply-reduce fuses into registers and the FFT's
-    scalar-op savings are irrelevant.)
+    integer convolution via a generated 16-point FFT, mod.rs:256-506; here
+    a broadcast-multiply-reduce keeps the graph short.)
   * Round-constant addition.
 
 Degenerate-representation note: the reference's raw Montgomery pipeline can
@@ -164,40 +164,19 @@ def permutation(state):
     return gf.canon(state)
 
 
-# Standalone-batch dispatch threshold: the lane-dense Pallas kernel needs
-# B % (8 * 512) == 0 (one (512, 128) block per lax.map step).
-_DENSE_MIN_BATCH = 1 << 12
-
-
 def permutation_batch(state):
     """STANDALONE batched permutation: (B, 16) limb planes -> permuted.
 
-    Dispatches to the lane-dense Pallas kernel
-    (ops.tip5_pallas.permutation_dense_nogrid) on the TPU backend for
-    aligned batches — measured 34.0M perms/s vs 23.1M for the XLA path
-    (interleaved medians, k 2 vs 18, batch 2^16, v5e, incl. the
-    (8,16)-pack/unpack transposes each call). The FUSED pipelines (hash
-    flows, Merkle layers, LDE leaf hashing) deliberately keep calling
-    `permutation`: inside a 2^20 Merkle commit the packed layout's
-    boundary transposes LOSE (51.2 vs 45.2 ms median, DESIGN.md §5) —
-    this is the reference's parallel-permutation workload
-    (benches/tip5.rs parallel row), not a building block for fusion.
-    Opt-out: TWENTY_FIRST_TPU_DENSE_PERM=0. NOTE: the dispatch decision
-    (backend + env var) is taken at TRACE time; under jax.jit it is baked
-    into the cached trace for each shape, so set the env var before the
-    first call (toggling it afterwards does not retrace).
-    """
-    import os
+    On the GPU, batches of at least one kernel block run the Pallas kernel
+    (tip5/kernel.py) on word-major planes, with one transpose each way;
+    everything else takes the XLA form. The choice depends on the backend
+    and the batch size only (kernel.use_kernel)."""
+    from . import kernel
 
     lo, hi = state
-    if (lo.ndim == 2
-            and lo.shape[0] > 0
-            and lo.shape[0] % _DENSE_MIN_BATCH == 0
-            and jax.default_backend() == "tpu"
-            and os.environ.get("TWENTY_FIRST_TPU_DENSE_PERM", "1") != "0"):
-        from ..ops.tip5_pallas import permutation_dense_nogrid
-
-        return permutation_dense_nogrid(lo, hi)
+    if lo.ndim == 2 and kernel.use_kernel(lo.shape[0]):
+        out = kernel.permutation_wm((lo.T, hi.T))
+        return out[0].T, out[1].T
     return permutation(state)
 
 
@@ -335,7 +314,7 @@ def hash_varlen(values) -> np.ndarray:
 # ---------------------------------------------------------------------------
 #
 # The reference hashes variable-length inputs one at a time through the
-# sponge (tip5/mod.rs:617-623, sponge.rs:32-56). The TPU-native equivalent
+# sponge (tip5/mod.rs:617-623, sponge.rs:32-56). The batched equivalent
 # batches inputs of DIFFERENT lengths: inputs are grouped into power-of-two
 # chunk-count buckets, each bucket runs ONE compiled graph — a lax.scan over
 # absorption chunks where lanes whose input is exhausted keep their state
@@ -413,16 +392,15 @@ def hash_varlen_ragged(inputs) -> np.ndarray:
 def permutation_values(states) -> np.ndarray:
     """Host-convenience: uint64 (..., 16) -> permuted uint64 (..., 16).
 
-    Always the XLA path (tests and the bench's Pallas smoke use this as
-    the oracle); the perf entry for standalone batches is
-    `permutation_batch_values`."""
+    Always the XLA form (the tests' oracle for the kernel); the entry for
+    standalone batches is `permutation_batch_values`."""
     out = jax.jit(permutation)(gf.to_limbs(np.asarray(states, dtype=np.uint64)))
     return gf.from_limbs(out)
 
 
 def permutation_batch_values(states) -> np.ndarray:
-    """Host-convenience over `permutation_batch` (lane-dense Pallas
-    dispatch on TPU for aligned 2-D standalone batches)."""
+    """Host-convenience over `permutation_batch` (the GPU kernel for 2-D
+    batches of at least one kernel block)."""
     out = jax.jit(permutation_batch)(
         gf.to_limbs(np.asarray(states, dtype=np.uint64)))
     return gf.from_limbs(out)

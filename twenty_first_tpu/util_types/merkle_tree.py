@@ -1,12 +1,13 @@
-"""Merkle tree over Tip5, TPU-native.
+"""Merkle tree over Tip5.
 
 Mirrors twenty-first/src/util_types/merkle_tree.rs in API and values. Node
 indexing is the reference's 1-based array convention (root at 1, leafs at
 n..2n; merkle_tree.rs:25-88). Construction is a layer-wise batched
-`hash_pair` reduction on device — the TPU-native replacement for the
-reference's rayon subtree parallelism (par_new, merkle_tree.rs:165-212):
-each layer is one fused permutation over the whole batch; parallelism across
-a chip is implicit in the VPU lanes, across chips via sharded layers
+`hash_pair` reduction — the replacement for the reference's rayon subtree
+parallelism (par_new, merkle_tree.rs:165-212): trees up to
+HOST_MERKLE_MAX_LEAFS build on the host (native OpenMP core), larger ones
+build every layer on the device in one jitted graph
+(parallel/dist_merkle.tree_nodes); across chips, layers are sharded
 (parallel/dist_merkle.py).
 
 The de-duplicated authentication structure, inclusion proofs and partial-tree
@@ -45,11 +46,11 @@ def _as_leaf_array(leafs) -> np.ndarray:
 
 
 # Host-vs-device crossover for the one-shot object API (same design split
-# as ntt.HOST_NTT_MAX_ELEMS): every _hash_layer call from MerkleTree.new /
-# frugal_root pays a host->device->host round trip for its layer, so on a
-# transfer-bound link the OpenMP native batch permutation wins up to large
-# layers. Device-resident pipelines (parallel/dist_merkle) never come
-# through here. Override with TWENTY_FIRST_TPU_HOST_MERKLE_MAX_LEAFS.
+# as ntt.HOST_NTT_MAX_ELEMS): trees up to this many leafs build on the host
+# (OpenMP native batch permutation); larger trees build on the device in one
+# graph, paying one transfer each way. The value dates from an earlier
+# accelerator and is not yet measured on the H100. Override with
+# TWENTY_FIRST_TPU_HOST_MERKLE_MAX_LEAFS.
 import os as _os
 
 HOST_MERKLE_MAX_LEAFS = int(_os.environ.get(
@@ -59,11 +60,10 @@ HOST_MERKLE_MAX_LEAFS = int(_os.environ.get(
 def _hash_layer(nodes: np.ndarray) -> np.ndarray:
     """One tree layer: (2b, 5) -> (b, 5) via batched hash_pair.
 
-    Tiny layers (below the reference's parallelization cutoff,
-    config.rs:68-77) and one-shot layers up to HOST_MERKLE_MAX_LEAFS run on
-    the host — OpenMP native batch permutation when available — since each
-    call here pays its own host->device->host round trip; only very large
-    layers go to the device kernel."""
+    Used for trees up to HOST_MERKLE_MAX_LEAFS: layers run on the OpenMP
+    native batch permutation when it is available; without it, tiny layers
+    (below the reference's parallelization cutoff, config.rs:68-77) take
+    the scalar path and larger ones the device hash_pair."""
     from .. import native
 
     b = nodes.shape[0] // 2
@@ -106,6 +106,11 @@ class MerkleTree:
         if height > MAX_TREE_HEIGHT:
             raise MerkleTreeError(f"tree height {height} exceeds {MAX_TREE_HEIGHT}")
         n = leafs.shape[0]
+        if n > HOST_MERKLE_MAX_LEAFS:
+            from ..parallel import dist_merkle
+
+            return cls(gf.from_limbs(
+                dist_merkle.tree_nodes(gf.to_limbs(leafs), height)))
         nodes = np.zeros((2 * n, Digest.LEN), dtype=np.uint64)
         nodes[n:] = leafs
         layer = leafs
@@ -117,7 +122,7 @@ class MerkleTree:
         return cls(nodes)
 
     # The reference's par_new/sequential_new distinction is a host-threading
-    # artifact; on TPU both are the same batched layer reduction.
+    # artifact; here both are the same batched layer reduction.
     par_new = new
     sequential_new = new
 
@@ -129,9 +134,13 @@ class MerkleTree:
         from .. import native
 
         layer = _as_leaf_array(leafs)
-        _check_num_leafs(layer.shape[0])
-        if (native.available()
-                and layer.shape[0] <= HOST_MERKLE_MAX_LEAFS):
+        height = _check_num_leafs(layer.shape[0])
+        if layer.shape[0] > HOST_MERKLE_MAX_LEAFS:
+            from ..parallel import dist_merkle
+
+            root = dist_merkle.merkle_root_limbs(gf.to_limbs(layer), height)
+            return Digest.from_array(gf.from_limbs(root)[0])
+        if native.available():
             return Digest.from_array(native.tip5_merkle_root(layer))
         while layer.shape[0] > 1:
             layer = _hash_layer(layer)

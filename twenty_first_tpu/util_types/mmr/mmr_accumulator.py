@@ -44,7 +44,7 @@ class MmrAccumulator(Mmr):
 
         Large inputs: the leaf count's binary decomposition splits the leafs
         into contiguous perfect trees; each peak is a batched device Merkle
-        reduction (the TPU-native form of the reference's diagonal sweep,
+        reduction (the batched form of the reference's diagonal sweep,
         mmr_accumulator.rs:96-115, which is inherently sequential).
         Small inputs: the sequential sweep on host."""
         if isinstance(leafs, np.ndarray):
